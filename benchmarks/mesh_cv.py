@@ -16,8 +16,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/singlet_tpu_jax_cache")
+    from singlet_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
     from singlet_tpu.data import load_pbmc3k
     from singlet_tpu.parallel.sharded import make_mesh
     from singlet_tpu.preprocess import log_normalize

@@ -13,7 +13,7 @@ This script runs the same workflow on the bundled pbmc3k (same 13,714 genes,
 2,700 cells — the unfiltered twin) and records rank, per-k final test errors
 and the normalized d spectrum into PARITY_pbmc3k.json for PARITY.md.
 
-Run on the TPU: `python benchmarks/parity_pbmc3k.py`
+Run: `python benchmarks/parity_pbmc3k.py`
 """
 
 import json
@@ -30,8 +30,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/singlet_tpu_jax_cache")
+    from singlet_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
     from singlet_tpu.data import load_pbmc3k
     from singlet_tpu.preprocess import log_normalize
     from singlet_tpu.solvers import drivers

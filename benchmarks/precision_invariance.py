@@ -5,16 +5,18 @@ them moves what the user actually consumes — the pbmc3k cross-validation
 error curve and the selected rank (reference workflow: cross_validate_nmf
 + GetBestRank, reference:R/cross_validate_nmf.R:18-105, R/GetBestRank.R:8-46):
 
-  * SINGLET_TPU_MM_PRECISION=high (3 bf16 passes/product vs 6 at the
-    HIGHEST default) — opt-in;
-  * single-pass bf16 masked packed-Gram products (MASK_MM_PRECISION) —
-    the DEFAULT since round 3;
+  * SINGLET_TPU_MM_PRECISION=high (TF32 tensor-core products on a GPU
+    instead of the full-f32 HIGHEST default) — opt-in;
+  * DEFAULT-precision masked packed-Gram products (MASK_MM_PRECISION; TF32
+    on a GPU) — the DEFAULT;
   * the adaptive inexact-inner-solve schedule (SINGLET_TPU_SWEEPS,
     ops/nnls.py:sweep_cap_update) — the DEFAULT since round 4: CD sweeps
     capped at 8 until the outer tol nears convergence, then full sweeps.
 
-Each configuration runs in a subprocess (the knobs are bound at import).
-Prints one JSON line with the curves, selected ranks, and the verdict.
+Each configuration runs in a subprocess (the knobs are bound at import),
+one at a time; this parent process never initialises a JAX backend, so
+each child has the device to itself. Prints one JSON line with the
+curves, selected ranks, and the verdict.
 """
 
 import json
@@ -25,8 +27,6 @@ import sys
 CHILD = r"""
 import json, sys
 import numpy as np
-import jax
-jax.config.update("jax_compilation_cache_dir", "/tmp/singlet_tpu_jax_cache")
 from singlet_tpu.data import load_pbmc3k
 from singlet_tpu.preprocess import log_normalize
 from singlet_tpu.solvers import drivers
@@ -61,8 +61,8 @@ def run_child(precision: str, **extra_env: str):
 
 def main():
     # reference-exact baseline: pin ALL knobs (mask products default to
-    # single-pass bf16 since round 3, sweeps to adaptive since round 4, so
-    # the baseline must opt out explicitly)
+    # DEFAULT precision and sweeps to adaptive, so the baseline must opt
+    # out explicitly)
     hi = run_child("highest", SINGLET_TPU_MASK_MM_PRECISION="highest",
                    SINGLET_TPU_SWEEPS="reference")
     rel = run_child("high", SINGLET_TPU_MASK_MM_PRECISION="highest",
@@ -74,14 +74,14 @@ def main():
                    for k in ks)
 
     max_rel_shift = shift(rel)
-    # the masked-Gram relaxation (single-pass bf16 products for
-    # mask @ packed_outer_products only — the masked-path bottleneck at
-    # scale, see ops/linalg.py:MASK_MM_PRECISION) — the DEFAULT since
-    # round 3; this guard is what licenses that default
+    # the masked-Gram relaxation (DEFAULT-precision products for
+    # mask @ packed_outer_products only, see
+    # ops/linalg.py:MASK_MM_PRECISION) — the DEFAULT; this guard is what
+    # licenses that default
     mrel = run_child("highest", SINGLET_TPU_SWEEPS="reference")
     max_mask_shift = shift(mrel)
-    # the adaptive inexact-inner-solve schedule plus mask bf16 = the
-    # SHIPPED defaults (round 4); this guard is what licenses them
+    # the adaptive inexact-inner-solve schedule plus DEFAULT-precision mask
+    # products = the shipped defaults; this guard is what licenses them
     srel = run_child("highest")
     max_sweep_shift = shift(srel)
     verdict = (hi["best_rank"] == rel["best_rank"] == mrel["best_rank"]

@@ -3,11 +3,11 @@ pbmc3k CV curve or the selected rank?
 
 The masked fast cap bounds the inner CD sweeps during rank-search fits
 (ops/nnls.py:CD_FAST_SWEEPS_MASKED, default 32 — cap 8 measured a rank
-flip on the flat pbmc3k shelf in round 4). The cap is a large term of the
-masked iteration cost at scale (the cap-32 packed solve measures ~0.3
-s/pass of the 1.6 s masked iteration at 524k/k=100), so the smallest
-safe cap is worth knowing. Prints one JSON line; exit 0 iff every tested
-cap keeps the selected rank AND the curve within 1% of cap-32.
+flip on the flat pbmc3k shelf). The cap bounds the per-column CD solves
+of every masked iteration, so the smallest safe cap is worth knowing.
+Children run one at a time and this parent never initialises a JAX
+backend. Prints one JSON line; exit 0 iff every tested cap keeps the
+selected rank AND the curve within 1% of cap-32.
 
 Run: python benchmarks/sweepcap_guard.py [--caps 16,12,8]
 """
@@ -21,8 +21,6 @@ import sys
 CHILD = r"""
 import json, sys
 import numpy as np
-import jax
-jax.config.update("jax_compilation_cache_dir", "/tmp/singlet_tpu_jax_cache")
 from singlet_tpu.data import load_pbmc3k
 from singlet_tpu.preprocess import log_normalize
 from singlet_tpu.solvers import drivers

@@ -25,8 +25,11 @@ import math
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import pandas as pd
 from scipy import special, stats
+
+from singlet_tpu.utils import LazyModule
+
+pd = LazyModule("pandas")
 
 
 # ---------------------------------------------------------------------------

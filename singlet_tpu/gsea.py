@@ -31,7 +31,10 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-import pandas as pd
+
+from singlet_tpu.utils import LazyModule
+
+pd = LazyModule("pandas")
 
 
 def msigdb_gene_sets(category: Optional[str] = None,

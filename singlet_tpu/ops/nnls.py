@@ -1,17 +1,18 @@
 """Batched sequential coordinate-descent NNLS.
 
-TPU-native redesign of the reference's innermost hot loop
+Redesign of the reference's innermost hot loop
 (reference:src/singlet.cpp:229-250, modified from NNLM's ``c_nnls``): solve
 ``a x = b`` for ``x >= 0`` by Gauss-Seidel coordinate descent with residual
 tracking and clamp-at-zero, warm-started from the previous ALS iteration's
 factor values.
 
 The reference runs one column at a time with a scalar loop over coordinates;
-on TPU we batch *all* columns of the half-update at once: each coordinate step
-updates a length-n lane vector (VPU) and applies a rank-1 residual downdate to
-the (n, k) RHS block. The coordinate recurrence is inherently sequential in k,
-so the k-loop is unrolled with static indices (k is small: 2..~200) while the
-sweep loop is a ``lax.while_loop`` with per-column convergence masks.
+here *all* columns of the half-update are solved at once: each coordinate
+step updates a length-n vector and applies a rank-1 residual downdate to
+the (n, k) RHS block. ``nnls_batch`` is the plain XLA formulation (the
+k-loop is unrolled with static indices, the sweep loop is a
+``lax.while_loop`` with per-column convergence masks); ``solve_nnls*`` are
+the engines' entry points to it, one per Gram form.
 
 Exact reference semantics reproduced per column:
   - per-coordinate update ``diff = b_i / a_ii - L1 + L2 * x_i`` with
@@ -217,117 +218,23 @@ def nnls_batch(
     return X
 
 
-def _batched_a_block_cap(k: int) -> int:
-    """Column-block cap for the per-column-Gram Pallas kernel: two pipeline
-    copies of the (k, k, block) Gram tile plus the (k, block) vectors must
-    fit the ~128 MB VMEM (the kernel raises its vmem limit accordingly).
-    The CD sweep chain is a sequential recurrence, so the WIDEST block that
-    fits wins — at block=128 the chain is latency-bound (measured ~0.85 s
-    of the masked-CV iteration at the 524k/k=100 config)."""
-    return max(128, (88 << 20) // (8 * k * k))
-
-
-def solve_nnls_packed(a_full, packed, iu, B, X0, L1=0.0, L2=0.0,
-                      update_mask=None, max_sweeps: int = CD_MAX_SWEEPS,
-                      n_coord=None, sweep_cap=None):
-    """Per-column NNLS where each column's Gram is ``a_full`` minus a
-    packed-triangle correction (the masked-CV formulation,
-    reference:src/singlet.cpp:460-464: ``a_i = AAt(w) - AAt(w[:, idx])``).
-
-    ``packed``: (n, npairs) accumulated masked outer products. On TPU the
-    per-column Grams are emitted straight into the Pallas kernel's
-    coordinate-tile layout (``unpack_sym_t``) — no (n, k, k) batch is ever
-    materialized and no minor-axis transpose runs; elsewhere this is
-    exactly ``solve_nnls(a_full[None] - unpack_sym(packed), ...)``.
-    """
-    from singlet_tpu.ops.linalg import unpack_sym, unpack_sym_t
-
-    n, k = B.shape
-    l1_is_array = isinstance(L1, jnp.ndarray) and getattr(L1, "ndim", 0) == 2
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu and not l1_is_array and B.dtype == jnp.float32 and n % 128 == 0:
-        from singlet_tpu.ops.pallas_nnls import nnls_batch_pallas_batched_at
-
-        at = unpack_sym_t(packed, k, iu, a_full)
-        block = next(b for b in (1024, 512, 256, 128)
-                     if n % b == 0 and b <= _batched_a_block_cap(k))
-        return nnls_batch_pallas_batched_at(at, B, X0, L1=L1, L2=L2,
-                                            update_mask=update_mask,
-                                            max_sweeps=max_sweeps,
-                                            block=block, n_coord=n_coord,
-                                            sweep_cap=sweep_cap)
-    a = a_full[None] - unpack_sym(packed, k, iu)
-    return nnls_batch(a, B, X0, L1=L1, L2=L2, update_mask=update_mask,
-                      max_sweeps=max_sweeps, n_coord=n_coord,
-                      sweep_cap=sweep_cap)
+# the engines' entry point for a shared (k, k) or per-column (n, k, k) Gram
+solve_nnls = nnls_batch
 
 
 def solve_nnls_packed_t(a_full, packed_t, iu, B, X0, L1=0.0, L2=0.0,
                         update_mask=None, max_sweeps: int = CD_MAX_SWEEPS,
                         n_coord=None, sweep_cap=None):
-    """:func:`solve_nnls_packed` with the packed corrections TRANSPOSED —
-    ``packed_t`` (np_pad, n), possibly pair-padded (ops/linalg.py:pad_pairs)
-    — the orientation the fused masked-product kernels emit
-    (ops/pallas_maskgram.py). On TPU the coordinate-tile Grams come from a
-    single static row-gather (``unpack_sym_from_t``): no transpose of the
-    packed array exists anywhere between the mask product and the CD solve.
-    """
+    """Per-column NNLS where each column's Gram is ``a_full`` minus a
+    packed-triangle correction (the masked-CV formulation,
+    reference:src/singlet.cpp:460-464: ``a_i = AAt(w) - AAt(w[:, idx])``).
+    ``packed_t``: (np_pad, n) accumulated masked outer products, possibly
+    pair-padded (ops/linalg.py:pad_pairs) — the orientation the masked
+    products emit (``mask_dot_t``). The per-column Grams come from one
+    static row-gather (``unpack_sym_from_t``)."""
     from singlet_tpu.ops.linalg import unpack_sym_from_t
 
-    n, k = B.shape
-    l1_is_array = isinstance(L1, jnp.ndarray) and getattr(L1, "ndim", 0) == 2
-    at = unpack_sym_from_t(packed_t, k, iu, a_full)
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu and not l1_is_array and B.dtype == jnp.float32 and n % 128 == 0:
-        from singlet_tpu.ops.pallas_nnls import nnls_batch_pallas_batched_at
-
-        block = next(b for b in (1024, 512, 256, 128)
-                     if n % b == 0 and b <= _batched_a_block_cap(k))
-        return nnls_batch_pallas_batched_at(at, B, X0, L1=L1, L2=L2,
-                                            update_mask=update_mask,
-                                            max_sweeps=max_sweeps,
-                                            block=block, n_coord=n_coord,
-                                            sweep_cap=sweep_cap)
-    a = jnp.transpose(at, (2, 1, 0))
-    return nnls_batch(a, B, X0, L1=L1, L2=L2, update_mask=update_mask,
-                      max_sweeps=max_sweeps, n_coord=n_coord,
-                      sweep_cap=sweep_cap)
-
-
-def solve_nnls(a, B, X0, L1=0.0, L2=0.0, update_mask=None,
-               max_sweeps: int = CD_MAX_SWEEPS, n_coord=None,
-               sweep_cap=None):
-    """Backend dispatcher: fused Pallas kernels on TPU (8-10x faster than the
-    op-by-op XLA path), XLA everywhere else. Semantics are identical
-    (validated bitwise in tests)."""
-    n, k = B.shape
-    l1_is_array = isinstance(L1, jnp.ndarray) and getattr(L1, "ndim", 0) == 2
-    on_tpu = jax.default_backend() == "tpu"
-    if on_tpu and not l1_is_array and B.dtype == jnp.float32 and n % 128 == 0:
-        from singlet_tpu.ops.pallas_nnls import (
-            nnls_batch_pallas,
-            nnls_batch_pallas_batched_a,
-        )
-
-        if a.ndim == 2:
-            # scoped VMEM is 16 MB and pallas double-buffers grid inputs:
-            # budget ~9 (k, block) f32 tiles (3 inputs x2 + out x2 + scratch)
-            # under ~14 MB; bigger blocks amortize the sequential coordinate
-            # chain across more lanes
-            vmem_cap = max(128, (14 * 2**20) // (9 * 4 * k))
-            block = next(b for b in (4096, 2048, 1024, 512, 256, 128)
-                         if n % b == 0 and b <= vmem_cap)
-            return nnls_batch_pallas(a, B, X0, L1=L1, L2=L2,
-                                     update_mask=update_mask,
-                                     max_sweeps=max_sweeps, block=block,
-                                     n_coord=n_coord, sweep_cap=sweep_cap)
-        block = next(b for b in (1024, 512, 256, 128)
-                     if n % b == 0 and b <= _batched_a_block_cap(k))
-        return nnls_batch_pallas_batched_a(a, B, X0, L1=L1, L2=L2,
-                                           update_mask=update_mask,
-                                           max_sweeps=max_sweeps, block=block,
-                                           n_coord=n_coord,
-                                           sweep_cap=sweep_cap)
-    return nnls_batch(a, B, X0, L1=L1, L2=L2, update_mask=update_mask,
-                      max_sweeps=max_sweeps, n_coord=n_coord,
-                      sweep_cap=sweep_cap)
+    at = unpack_sym_from_t(packed_t, B.shape[1], iu, a_full)
+    return nnls_batch(jnp.transpose(at, (2, 1, 0)), B, X0, L1=L1, L2=L2,
+                      update_mask=update_mask, max_sweeps=max_sweeps,
+                      n_coord=n_coord, sweep_cap=sweep_cap)

@@ -13,13 +13,14 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
-import pandas as pd
 
-import matplotlib
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
+from singlet_tpu.solvers.drivers import get_best_rank
+from singlet_tpu.utils import LazyModule
 
-from singlet_tpu.solvers.drivers import get_best_rank  # noqa: E402
+pd = LazyModule("pandas")
+# headless backend, chosen before pyplot is first imported
+plt = LazyModule("matplotlib.pyplot",
+                 setup=lambda: __import__("matplotlib").use("Agg"))
 
 
 def rank_plot(cv_data: pd.DataFrame, detail: int = 1,

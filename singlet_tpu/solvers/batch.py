@@ -20,7 +20,7 @@ import numpy as np
 
 from singlet_tpu.model import NMFModel
 from singlet_tpu.ops.linalg import MM_PRECISION, cor_distance, gram, scale_columns
-from singlet_tpu.ops.nnls import nnls_batch, solve_nnls
+from singlet_tpu.ops.nnls import solve_nnls
 from singlet_tpu.solvers.drivers import _coerce_dense, _finalize
 from singlet_tpu.utils import enable_compilation_cache
 
@@ -95,7 +95,7 @@ def nmf_batch(A, k: int, batch_id, tol: float = 1e-4, maxit: int = 100,
         a_w = gram(W)
         B = jnp.dot(Aj.T, W, precision=MM_PRECISION)
         # per-(cell, factor) L1: base scalar + batch penalty
-        H = nnls_batch(a_w, B, H, L1=L1_cells, L2=L2, update_mask=nonempty,
+        H = solve_nnls(a_w, B, H, L1=L1_cells, L2=L2, update_mask=nonempty,
                        sweep_cap=sweep_cap)
         H, d = scale_columns(H)
         a_h = gram(H)

@@ -18,21 +18,20 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence, Tuple, Union
 
-import jax.numpy as jnp
 import numpy as np
-import pandas as pd
 
 from singlet_tpu.model import NMFModel
 from singlet_tpu.solvers.als import init_w, make_dense_providers, nmf_fit
 from singlet_tpu.solvers.ard import ard_nmf_fit
 from singlet_tpu.sparse.matrix import DenseMatrix
 from singlet_tpu.utils import (enable_compilation_cache, is_scipy_sparse,
-                               vprint)
+                               pandas_available, vprint)
 
 
 def _coerce_dense(A) -> np.ndarray:
-    """Accept numpy arrays or scipy sparse; density is a storage detail on
-    TPU (the dense provider path), not an algorithmic switch."""
+    """Accept numpy arrays or scipy sparse; below ``SPARSE_THRESHOLD``
+    density is a storage detail (the dense provider path), not an
+    algorithmic switch."""
     try:
         import scipy.sparse as sp
 
@@ -45,8 +44,7 @@ def _coerce_dense(A) -> np.ndarray:
 
 # scipy-sparse inputs with more dense entries than this stay in blocked-ELL
 # sparse storage (the transpose-free engine); smaller inputs are densified
-# outright — the fastest path on the MXU ("sparse optimization" on TPU means
-# not fighting the MXU).
+# outright and run as dense matmuls.
 SPARSE_THRESHOLD = 64e6
 
 
@@ -191,26 +189,58 @@ def run_nmf(
 # GetBestRank — the rank-selection rule
 # ---------------------------------------------------------------------------
 
-def get_best_rank(df: pd.DataFrame, tol_overfit: float = 1e-4) -> int:
+def _columns(df) -> dict:
+    """Numpy columns of a CV trace table (DataFrame or dict of columns)."""
+    if hasattr(df, "columns"):
+        return {c: df[c].to_numpy() for c in df.columns}
+    return {c: np.asarray(v) for c, v in df.items()}
+
+
+def trace_table(rows: list, columns: Sequence[str]):
+    """CV trace rows as the public table: a pandas DataFrame of class
+    ``cross_validate_nmf_data`` when pandas is importable, otherwise a dict
+    of numpy columns with the same keys."""
+    if pandas_available():
+        import pandas as pd
+
+        df = pd.DataFrame(rows, columns=list(columns))
+        df.attrs["class"] = "cross_validate_nmf_data"
+        return df
+    return {c: np.asarray([r[c] for r in rows]) for c in columns}
+
+
+def _unique_in_order(x: np.ndarray) -> np.ndarray:
+    _, first = np.unique(x, return_index=True)
+    return x[np.sort(first)]
+
+
+def get_best_rank(df, tol_overfit: float = 1e-4) -> int:
     """Select the best rank from CV traces (reference:R/GetBestRank.R:8-46).
 
-    Per replicate: cap max_rank at the smallest rank whose running-min
-    normalized error trace rises by more than tol_overfit; below the cap,
-    condense each (rep, k) to its last trace point and take the k minimizing
-    test error; floor of the mean across replicates.
+    ``df``: the trace table of ``cross_validate_nmf`` (a DataFrame or a dict
+    of columns k, rep, test_error, iter). Per replicate: cap max_rank at
+    the smallest rank whose running-min normalized error trace rises by
+    more than tol_overfit; below the cap, condense each (rep, k) to its
+    last trace point and take the k minimizing test error; floor of the
+    mean across replicates.
     """
-    if len(df) == 0:
+    cols = _columns(df)
+    n_rows = len(cols["k"]) if "k" in cols else 0
+    if n_rows == 0:
         # e.g. the very first fit of a search already overfit: nothing below
         # the cap — fall back to the minimum rank (mirrors the empty-cap
         # branch below; R would propagate NaN here)
         return 2
+    k_all, rep_all = cols["k"], cols["rep"]
     best_ranks = []
-    for rep in sorted(df["rep"].unique()):
-        df_rep = df[df["rep"] == rep]
-        max_rank = int(df_rep["k"].max()) + 1
-        for rank in pd.unique(df_rep["k"]):
+    for rep in np.unique(rep_all):
+        sel = rep_all == rep
+        k_r, err_r, it_r = k_all[sel], cols["test_error"][sel], \
+            cols["iter"][sel]
+        max_rank = int(k_r.max()) + 1
+        for rank in _unique_in_order(k_r):
             if rank < max_rank:
-                err = df_rep[df_rep["k"] == rank]["test_error"].to_numpy()
+                err = err_r[k_r == rank]
                 if err.size > 1:
                     v2 = err[1:]
                     v1 = err[:-1].copy()
@@ -221,18 +251,20 @@ def get_best_rank(df: pd.DataFrame, tol_overfit: float = 1e-4) -> int:
                     rise = np.max(np.concatenate([[0.0], (v2 - v1) / (v2 + v1)]))
                     if rise > tol_overfit:
                         max_rank = int(rank)
-        df_cap = df_rep[df_rep["k"] < max_rank]
-        if len(df_cap) == 0:
+        cap = k_r < max_rank
+        if not cap.any():
             best_ranks.append(2)
-        elif len(df) == 1:  # quirk preserved: tests the FULL frame's length
-            best_ranks.append(int(df_cap["k"].iloc[0]))
+        elif n_rows == 1:  # quirk preserved: tests the FULL table's length
+            best_ranks.append(int(k_r[cap][0]))
         else:
-            condensed = (
-                df_cap.sort_values("iter").groupby("k", as_index=False).last()
-            )
-            best_ranks.append(
-                int(condensed["k"].iloc[condensed["test_error"].to_numpy().argmin()])
-            )
+            # condense each k to its last trace point (largest iter)
+            k_c, err_c, it_c = k_r[cap], err_r[cap], it_r[cap]
+            order = np.argsort(it_c, kind="stable")
+            last = {}
+            for j in order:
+                last[k_c[j]] = err_c[j]
+            ks = sorted(last)
+            best_ranks.append(int(ks[int(np.argmin([last[k] for k in ks]))]))
     return int(math.floor(float(np.mean(best_ranks))))
 
 
@@ -259,13 +291,15 @@ def cross_validate_nmf(
     seed: int = 0,
     mesh=None,
     config=None,
-) -> pd.DataFrame:
+):
     """Masked CV over a (rank, replicate) grid
     (reference:R/cross_validate_nmf.R:18-105).
 
     Each replicate shares one nested w_init (rank-k fit uses the first k
     columns) and a deterministic per-replicate mask seed. Returns the tidy
-    trace frame of class ``cross_validate_nmf_data``. ``mesh`` routes every
+    trace table (columns k, rep, test_error, iter, tol): a pandas DataFrame
+    of class ``cross_validate_nmf_data`` when pandas is importable,
+    otherwise a dict of numpy columns with the same keys. ``mesh`` routes every
     fit to the multi-chip sparse engine. ``config`` (an NMFConfig) supplies
     the hyperparameters, taking precedence over per-argument defaults.
     """
@@ -309,14 +343,18 @@ def cross_validate_nmf(
             rows.append(dict(k=k, rep=rep, test_error=e, iter=i, tol=t))
         vprint(verbose, 2, f"test set error: {res.test_mse[-1]:.4e}\n")
 
-    df = pd.DataFrame(rows)
-    df.attrs["class"] = "cross_validate_nmf_data"
-    return df
+    return trace_table(rows, ("k", "rep", "test_error", "iter", "tol"))
 
 
 # ---------------------------------------------------------------------------
 # ard_nmf — adaptive rank search
 # ---------------------------------------------------------------------------
+
+_ARD_COLUMNS = ("k", "rep", "test_error", "iter", "tol", "overfit_score")
+
+
+def _rows_to_columns(rows: list) -> dict:
+    return {c: np.asarray([r[c] for r in rows]) for c in _ARD_COLUMNS}
 
 def ard_nmf(
     A,
@@ -466,16 +504,14 @@ def ard_nmf(
             if overfit_score >= tol_overfit:
                 this_k_max = curr_rank
 
-            df_rep = pd.DataFrame([r for r in rows if r["rep"] == curr_rep])
-            df_rep = df_rep.sort_values("k", kind="stable")
+            rep_rows = sorted((r for r in rows if r["rep"] == curr_rep),
+                              key=lambda r: r["k"])
             # NOTE: the reference calls GetBestRank with its *default*
             # tol.overfit here (reference:R/ard_nmf.R:129), not tol_overfit.
-            best_rank = get_best_rank(df_rep[df_rep["k"] < this_k_max])
-            condensed = (
-                df_rep.sort_values("iter").groupby("k", as_index=False).last()
-            ).sort_values("k").reset_index(drop=True)
+            best_rank = get_best_rank(_rows_to_columns(
+                [r for r in rep_rows if r["k"] < this_k_max]))
             vprint(verbose, 2, f"   best rank in replicate = {best_rank}\n")
-            kvals = condensed["k"].tolist()
+            kvals = sorted({r["k"] for r in rep_rows})
             if best_rank not in kvals:
                 # can occur only via the empty-frame fallback of
                 # get_best_rank; step outward from it
@@ -513,9 +549,8 @@ def ard_nmf(
                 and curr_rank >= k_min and n_fits >= max_fits):
             _save_search(curr_rep + 1, False)
 
-    df = pd.DataFrame(rows)
-    df.attrs["class"] = "cross_validate_nmf_data"
-    best_rank = get_best_rank(df, tol_overfit)
+    df = trace_table(rows, _ARD_COLUMNS)
+    best_rank = get_best_rank(_rows_to_columns(rows), tol_overfit)
 
     vprint(verbose, 1, f"\nFitting final model at k = {best_rank}")
     w, d, h = _fit_plain(P, best_rank, w_init=w_inits[0][:, :best_rank],

@@ -10,7 +10,10 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
-import pandas as pd
+
+from singlet_tpu.utils import LazyModule
+
+pd = LazyModule("pandas")
 
 
 def metadata_summary(h: np.ndarray, factor_data: Sequence,

@@ -137,7 +137,7 @@ def metric_logging(path: Optional[str] = None, keep_in_memory: bool = True):
 def profile(logdir: str, enabled: bool = True):
     """XLA-level profiler trace around a fit (view with TensorBoard/xprof).
 
-    ``with profile("/tmp/trace"): run_nmf(...)``. No-op when disabled so
+    ``with profile("traces/"): run_nmf(...)``. No-op when disabled so
     callers can gate on a flag without restructuring.
     """
     if not enabled:

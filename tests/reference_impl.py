@@ -4,7 +4,7 @@ Implements, from the behavioral spec in SURVEY.md (citations inline), the
 dense-mode solver pipeline of the reference: stateless mask hash, CD-NNLS,
 predict / predict_mask half-updates, scale, cor, test-set MSE, the plain ALS
 loop and the masked (ARD) loop with overfit early-stop. Used as the golden
-comparator for the TPU engine. Deliberately simple and slow.
+comparator for the JAX engine. Deliberately simple and slow.
 
 Orientation follows the reference internals: w is (k, genes), h is (k, cells),
 A is (genes, cells) dense.
@@ -114,7 +114,7 @@ class SweepSchedule:
     """f64 twin of singlet_tpu.ops.nnls.sweep_cap_update: inner CD solves
     are capped at ``fast`` sweeps until the outer tol first drops under
     max(10 * tol_target, 1e-4); from then on (latched) the full cap runs.
-    Mirrors the TPU engines' DEFAULT so oracle trajectories stay comparable;
+    Mirrors the JAX engines' DEFAULT so oracle trajectories stay comparable;
     pass adaptive_sweeps=False for the reference's unconditional 100."""
 
     def __init__(self, tol_target, fast=8, full=100, exact_tol=1e-4):

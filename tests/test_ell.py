@@ -2,9 +2,9 @@
 
 Large scipy-sparse inputs route to the transpose-free blocked-ELL engine on
 a 1-device mesh — the same layout/packer/compute as the multi-chip path
-(parallel/sharded_ell.py), with no scatter anywhere (TPU has no scatter
-hardware; benchmarks/probe_ell_spmm.py measured the old row-ELL scatter
-densify at 4.4 s/pass vs ~0.5 s for the blocked compare-sum formulation).
+(parallel/sharded_ell.py), with no scatter anywhere in the operand-sized
+work (the blocked compare-sum formulation replaced a row-ELL scatter
+densify).
 """
 
 import numpy as np
@@ -70,11 +70,9 @@ def test_engine_routed_cv_matches_dense(monkeypatch, rng):
 def test_no_scatter_in_operand_densify(rng):
     """The blocked-ELL tile densify + SpMM (the operand-sized work) lowers
     with no scatter op — it is a pure multiply-compare-sum chain + matmul.
-    (The CPU-fallback CD-NNLS still updates factor columns with tiny
-    (block, k) scatters; on TPU that solve is the fused Pallas kernel.
-    probe_ell_spmm.py measured the old row-ELL operand scatter at 4.4 s/pass
-    at the 524k-cell scale — this test pins the formulation that removed
-    it.)"""
+    (The CD-NNLS solve still updates factor columns with tiny (block, k)
+    scatters; this test pins the formulation that removed the operand
+    scatter.)"""
     import jax
     import jax.numpy as jnp
 
